@@ -11,7 +11,7 @@ the distributed runtime, not shared memory) decodes bit-exactly.
 Mirrors the multi-host design of SURVEY.md sec 2.7 / BASELINE config 5
 (reference analog: the plugin's single-process thread pipeline,
 /root/reference/src/radio_block.cpp — the reference has no multi-host story;
-this is the TPU-native scale-out path).
+this is the batched scale-out path).
 
 Usage: _multihost_worker.py <process_id> <num_processes> <coordinator>
 """

@@ -89,9 +89,9 @@ def test_pipeline_mixes_sources(tmp_path):
 
 def test_dynamic_label_roundtrip():
     dec = DynamicLabelDecoder()
-    for seg in build_dynamic_label_segments("Now Playing: TPU Radio — Symphony No. 5"):
+    for seg in build_dynamic_label_segments("Now Playing: DAB Radio — Symphony No. 5"):
         dec.push_segment(seg)
-    assert dec.label == "Now Playing: TPU Radio — Symphony No. 5".encode(
+    assert dec.label == "Now Playing: DAB Radio — Symphony No. 5".encode(
         "latin-1", "replace").decode("latin-1")
     assert dec.stats["crc_errors"] == 0
 

@@ -202,20 +202,6 @@ def test_rs_detects_failure_beyond_t():
     assert failed.sum() >= 14
 
 
-def test_viterbi_pallas_matches_scan():
-    """Pallas ACS kernel (interpret mode on CPU) == XLA scan decoder."""
-    from tpudab.ops.viterbi_pallas import viterbi_decode_pallas
-    rng = np.random.default_rng(30)
-    b, n = 4, 300
-    bits = rng.integers(0, 2, (b, n)).astype(np.uint8)
-    enc = np.stack([conv_encode(r) for r in bits])
-    soft = bits_to_soft(enc) + rng.normal(0, 0.7, enc.shape).astype(np.float32)
-    soft = soft.reshape(b, n + 6, 4)
-    want = np.asarray(viterbi_decode(soft, n))
-    got = np.asarray(viterbi_decode_pallas(soft, n, chunk=64, interpret=True))
-    np.testing.assert_array_equal(got, want)
-
-
 def test_viterbi_radix_compaction_matches_oracle():
     """radix-2^k trellis compaction (k steps per scan iteration) is exact
     for every k, including lengths not divisible by k (virtual-flush pad)."""

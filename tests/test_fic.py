@@ -19,7 +19,7 @@ from tpudab.database.updater import DatabaseUpdater
 def make_spec():
     return EnsembleSpec(
         ensemble_id=0xCE15,
-        label="TPU DAB Mux",
+        label="Test DAB Mux",
         ecc=0xE1,
         services=[
             ServiceSpec(0xC221, "Radio Alpha", [(0, ASCTY_DAB_PLUS, 1)],
@@ -69,7 +69,7 @@ def test_full_chain_to_database(synth_frames):
     for fib in fibs:
         upd.process_events(parse_fib(fib))
     db = upd.db
-    assert db.ensemble.label == "TPU DAB Mux"
+    assert db.ensemble.label == "Test DAB Mux"
     assert db.ensemble.ensemble_id == 0xCE15
     assert db.ensemble.ecc == 0xE1
     assert db.services[0xC221].label == "Radio Alpha"

@@ -180,7 +180,7 @@ def test_dabplus_pad_dynamic_label_and_slideshow():
     hdr = SuperFrameHeader(dac_rate=1, sbr_flag=0, aac_channel_mode=1,
                            ps_flag=0, mpeg_surround=0)
     # PAD payload queue: dynamic label first, then an MOT slide
-    label_segs = build_dynamic_label_segments("TPU DAB dynamic label")
+    label_segs = build_dynamic_label_segments("Test DAB dynamic label")
     from tpudab.mot.imagemeta import TINY_PNG
     img = TINY_PNG + rng.integers(0, 256, 300 - len(TINY_PNG)).astype(np.uint8).tobytes()
     obj = MOTObject(transport_id=5, content_type=ContentType.IMAGE,
@@ -212,7 +212,7 @@ def test_dabplus_pad_dynamic_label_and_slideshow():
         aus[-1] = aus[-1] + b"\x00" * slack
         sf = build_superframe(hdr, aus, bitrate)
         ch.process_frames(sf.reshape(FRAMES_PER_SUPERFRAME, -1))
-    assert ch.dynamic_label == "TPU DAB dynamic label"
+    assert ch.dynamic_label == "Test DAB dynamic label"
     assert len(ch.slideshow.slides) == 1
     assert ch.slideshow.slides[0].data == img
 
@@ -232,23 +232,3 @@ def test_deinterleave_batch_matches_gather_oracle():
     np.testing.assert_array_equal(got, want)
     got1 = np.asarray(deinterleave_batch(jnp.asarray(buf[0]), c))
     np.testing.assert_array_equal(got1, want[0])
-
-
-def test_deinterleave_pallas_matches_xla():
-    """Pallas deinterleave kernel (interpret) == XLA mask-select form,
-    bit-for-bit, f32 + bf16, 2D + 3D."""
-    import jax.numpy as jnp
-    from tpudab.msc.interleave import deinterleave_pallas, _deinterleave_xla
-    rng = np.random.default_rng(11)
-    for e, c, s in ((1, 8, 128), (3, 64, 1024), (2, 17, 256)):
-        buf = jnp.asarray(rng.normal(0, 1, (e, c + 15, s)).astype(np.float32))
-        want = _deinterleave_xla(buf, c)
-        got = deinterleave_pallas(buf, c, interpret=True)
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-        got2 = deinterleave_pallas(buf[0], c, interpret=True)
-        np.testing.assert_array_equal(np.asarray(got2), np.asarray(want[0]))
-        bufh = buf.astype(jnp.bfloat16)
-        np.testing.assert_array_equal(
-            np.asarray(deinterleave_pallas(bufh, c, interpret=True)
-                       .astype(jnp.float32)),
-            np.asarray(_deinterleave_xla(bufh, c).astype(jnp.float32)))

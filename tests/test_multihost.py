@@ -6,9 +6,8 @@ Spawns two OS processes, each with 4 forced-host CPU devices, joined into one
 deinterleaver halo crosses the PROCESS boundary — and bit-verifies its
 addressable output shards.
 
-Real multi-host TPU pods are not reachable from this environment; this test
-covers the jax.distributed layer of the scale-out design so that only the
-DCN fabric itself is untested.
+This test covers the jax.distributed layer of the scale-out design on CPU
+processes; the four-GPU sharded path runs via `chip_smoke.py --four`.
 """
 
 import os

@@ -121,42 +121,6 @@ def test_split_real_demod_bf16():
     assert (hard != bits).mean() == 0.0
 
 
-def test_carve_rotate_kernel_matches_xla():
-    """The Pallas carve+rotate kernel (interpret mode on CPU) must match the
-    XLA window slice + PLL rotate to bf16 tolerance."""
-    import jax.numpy as jnp
-    from tpudab.ops.carve import carve_rotate
-
-    p = get_ofdm_params(1)
-    rng = np.random.default_rng(3)
-    f = 2
-    re = rng.standard_normal((f, p.nb_frame_length)).astype(np.float32)
-    im = rng.standard_normal((f, p.nb_frame_length)).astype(np.float32)
-    freq = np.array([800.0, -350.0], np.float32)
-    re3 = re.reshape(f, -1, 128)
-    im3 = im.reshape(f, -1, 128)
-    xr, xi = carve_rotate(jnp.asarray(re3), jnp.asarray(im3),
-                          jnp.asarray(freq), interpret=True)
-    xr = np.asarray(xr, np.float32).reshape(f, p.nb_symbols, p.nb_fft)
-    xi = np.asarray(xi, np.float32).reshape(f, p.nb_symbols, p.nb_fft)
-
-    start = p.nb_cyclic_prefix - 12
-    stride = p.nb_fft + p.nb_cyclic_prefix
-
-    def carve(x):
-        sym = x[:, p.nb_null_period:].reshape(f, p.nb_symbols, stride)
-        return sym[:, :, start:start + p.nb_fft]
-
-    from tpudab.constants.ofdm_params import SAMPLING_RATE
-    t_abs = ((p.nb_null_period + start + stride * np.arange(p.nb_symbols))[:, None]
-             + np.arange(p.nb_fft)[None, :]) / SAMPLING_RATE
-    ph = -2 * np.pi * freq[:, None, None] * t_abs[None]
-    c, s = np.cos(ph), np.sin(ph)
-    wr, wi = carve(re), carve(im)
-    np.testing.assert_allclose(xr, wr * c - wi * s, atol=0.03)
-    np.testing.assert_allclose(xi, wr * s + wi * c, atol=0.03)
-
-
 def test_constellation_tap_and_snr():
     """demod exposes a decimated DQPSK constellation; the SNR estimate
     tracks the impairment level and the ASCII render shows 4 clusters."""

@@ -1,7 +1,7 @@
 """Device-native acquisition (split-real, batched) vs two oracles.
 
-tpudab.ofdm.sync_device.acquire_device is the production path (runs on TPU
-backends without complex64); tpudab.ofdm.sync.acquire (complex-jnp) and
+tpudab.ofdm.sync_device.acquire_device is the production path (split-real,
+no complex dtype on device); tpudab.ofdm.sync.acquire (complex-jnp) and
 tpudab.ofdm.sync_np.acquire_np (pure NumPy, no JAX) are independent
 oracles. All three implement the same algorithm and must agree."""
 

@@ -6,8 +6,8 @@ Two modes:
   local   — spawn N worker processes on this machine (forced-host CPU
             devices) joined via jax.distributed + gloo; smoke-tests the
             full distributed decode path with the ppermute halo crossing
-            process boundaries. This is the same path a real TPU pod uses,
-            minus the DCN fabric.
+            process boundaries. Every worker runs on the CPU, so none of
+            them competes for a GPU another process holds.
 
       python tools/launch_multihost.py local --num-processes 2
 
@@ -17,9 +17,8 @@ Two modes:
       python tools/launch_multihost.py worker \
           --coordinator host0:12345 --num-processes 4 --process-id $IDX
 
-On real TPU hosts omit XLA_FLAGS forcing and let jax.distributed pick up
-the TPU topology; on CPU hosts each process contributes
---xla_force_host_platform_device_count devices.
+Each process contributes --xla_force_host_platform_device_count CPU
+devices.
 """
 
 import argparse
@@ -43,7 +42,7 @@ def run_local(n: int, devices_per_proc: int) -> int:
     env = dict(os.environ)
     env["XLA_FLAGS"] = (
         f"--xla_force_host_platform_device_count={devices_per_proc}")
-    env.pop("JAX_PLATFORMS", None)
+    env["JAX_PLATFORMS"] = "cpu"
     procs = [subprocess.Popen([sys.executable, _WORKER, str(i), str(n), coord],
                               env=env, cwd=_REPO) for i in range(n)]
     rc = 0

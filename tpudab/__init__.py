@@ -1,4 +1,5 @@
-"""tpudab — a TPU-native DAB (Digital Audio Broadcasting) receiver framework.
+"""tpudab — a batched, device-native DAB (Digital Audio Broadcasting) receiver
+framework.
 
 Built from scratch in JAX/XLA/Pallas with the capabilities of the
 SDRPlusPlus-DAB-Radio-Plugin reference (and its DAB-Radio core): the full chain
@@ -7,7 +8,8 @@ channel decoding (FIC/MSC, Viterbi, energy dispersal, time deinterleaving,
 DAB+ Firecode + Reed-Solomon superframes) to AAC/MP2 audio, dynamic labels and
 MOT slideshows.
 
-Layer map (mirrors reference SURVEY.md §1, re-designed TPU-first):
+Layer map (mirrors reference SURVEY.md §1, re-designed as batched device
+programs):
 
   L3 OFDM front-end   tpudab.ofdm     (batched JAX + Pallas; ref: vendor/DAB-Radio/src/ofdm)
   L2 DAB decoder      tpudab.fec/fic/msc/database  (ref: vendor/DAB-Radio/src/dab)

@@ -67,7 +67,7 @@ _PARAMS = {
 
 
 def get_ofdm_params(mode: int) -> OFDMParams:
-    """TPU-native analog of the reference's ``get_DAB_OFDM_params`` table."""
+    """Analog of the reference's ``get_DAB_OFDM_params`` table."""
     if mode not in _PARAMS:
         raise ValueError(f"unknown DAB transmission mode {mode!r} (valid: 1..4)")
     return _PARAMS[mode]

@@ -1,6 +1,6 @@
 """FEC layer: convolutional code, puncturing, scrambling, CRC, Reed-Solomon.
 
-TPU-native replacement for the reference's vendored `viterbi_decoder` SIMD
+Batched replacement for the reference's vendored `viterbi_decoder` SIMD
 package (/root/reference/CMakeLists.txt:53-54) and libcorrect
 (/root/reference/CMakeLists.txt:27-40): the Viterbi decoder is a batched
 JAX/Pallas program (tpudab.ops.viterbi); host-side byte-level checks (CRC,

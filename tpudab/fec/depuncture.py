@@ -2,10 +2,12 @@
 
 The receiver-side depuncture expands a punctured soft-bit stream back to the
 4*(I+6) mother-code positions, inserting 0.0 (erasure) at punctured slots.
-On device this is a per-region block-diagonal one-hot MXU matmul (the DAB
+On device this is a per-region block-diagonal one-hot matmul (the DAB
 puncture pattern repeats every 128 mother bits within a protection region) —
-the TPU-native analog of the reference's scalar depuncture loops
-(SURVEY.md sec 2.3 'Depuncturing').
+the batched analog of the reference's scalar depuncture loops
+(SURVEY.md sec 2.3 'Depuncturing'). The products run at HIGHEST precision:
+with float32 operands a TF32 product would round the soft bits, and every
+output is exactly one input (or the flush constant) only without it.
 """
 
 from __future__ import annotations
@@ -63,8 +65,8 @@ def depuncture(soft_bits, profile: PunctureProfile):
 
     Works on jnp or np arrays; jit-safe (tables are trace-time constants).
     Implemented as per-region block-diagonal one-hot matmuls (the puncture
-    pattern repeats every 128 mother bits within a protection region), which
-    runs on the MXU — ~6x faster on TPU than the column scatter it replaces.
+    pattern repeats every 128 mother bits within a protection region) in
+    place of a column scatter.
     """
     soft_bits = jnp.asarray(soft_bits)
     n_mother, runs = _block_runs(profile)
@@ -74,18 +76,19 @@ def depuncture(soft_bits, profile: PunctureProfile):
     # Accumulate in the operand dtype: every output element is a sum with at
     # most ONE nonzero product (one-hot columns), so a bf16 accumulator is
     # exact up to the bf16 rounding the inputs already carry — and emitting
-    # bf16 straight from the MXU halves the output HBM traffic vs f32 +
+    # bf16 straight from the matmul halves the output traffic vs f32 +
     # downcast (the final astype becomes a no-op).
     acc_dt = soft_bits.dtype if soft_bits.dtype == jnp.bfloat16 \
         else jnp.float32
     for n_blocks, kpb, one_hot in runs:
         seg = jax.lax.slice_in_dim(soft_bits, off, off + n_blocks * kpb, axis=-1)
         seg = seg.reshape(lead + (n_blocks, kpb))
-        # one_hot must match the operand dtype: a mixed bf16 x f32 dot is
-        # catastrophically slow on TPU (falls off the MXU path)
+        # one_hot matches the operand dtype (a mixed bf16 x f32 dot would
+        # upcast the whole operand)
         expanded = jax.lax.dot_general(
             seg, jnp.asarray(one_hot, dtype=seg.dtype),
             dimension_numbers=(((seg.ndim - 1,), (0,)), ((), ())),
+            precision=jax.lax.Precision.HIGHEST,
             preferred_element_type=acc_dt)
         outs.append(expanded.reshape(lead + (n_blocks * one_hot.shape[1],)))
         off += n_blocks * kpb
@@ -98,12 +101,11 @@ def depuncture_t(soft_bits, profile: PunctureProfile):
     zeros at punctured slots and at the trailing 128-bit block pad;
     T2p = n_blocks * 16 (8 mother bits per radix-2 Viterbi super-step).
 
-    This is the layout the Pallas Viterbi forward kernel consumes directly
-    (batch on lanes, one tile-aligned sublane slice per super-step), so
+    This is the layout the Pallas Viterbi kernel consumes directly (batch
+    minor, so a warp's threads read consecutive codewords of one step), so
     emitting it straight from the one-hot matmul — via a batched
     dot_general whose output is (n_blocks, 128, B) — deletes the full
-    (B, T, 4) -> (T2, 8, B) HBM transpose pass from the decode chain
-    (~2 ms at production batch on v5e).
+    (B, T, 4) -> (T2, 8, B) transpose pass from the decode chain.
 
     The tail pad region (mother positions >= n_mother, i.e. past the six
     real tail bits) is filled with the +1.0 virtual-flush pattern (see
@@ -115,8 +117,7 @@ def depuncture_t(soft_bits, profile: PunctureProfile):
     (ADVICE r3 item 1). The bias is folded INTO the final run's one-hot
     matmul as an affine column (ones appended to the operand, the flush
     pattern appended to the table) — a separate elementwise add after the
-    matmul materialized an extra full pass over the (T2p, 8, B) output
-    (~0.4 ms/step at production batch, a measured 3% headline regression).
+    matmul materialized an extra full pass over the (T2p, 8, B) output.
     Exactness is preserved: every output position still receives at most
     ONE nonzero product (the one-hot hit or the bias, never both), so a
     bf16 accumulator stays exact up to input rounding.
@@ -145,6 +146,7 @@ def depuncture_t(soft_bits, profile: PunctureProfile):
         out = jax.lax.dot_general(
             lhs, seg,
             dimension_numbers=(((2,), (2,)), ((0,), (1,))),
+            precision=jax.lax.Precision.HIGHEST,
             preferred_element_type=acc_dt)  # (n_blocks, 128, B)
         outs.append(out.astype(soft_bits.dtype))
         off += n_blocks * kpb

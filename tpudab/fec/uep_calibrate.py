@@ -12,9 +12,8 @@ decoder scores the shipped table plus the FULL enumerated candidate set
 (the same 10^2-10^3 budget+structure-exact alternatives per row that
 UEP_AMBIGUITY.json quantifies, deduplicated by effective puncture mask)
 with a re-encode oracle: depuncture -> Viterbi -> convolutional re-encode
--> mismatch vs the received hard decisions. On TPU every candidate is
-scored exactly in one batched Pallas Viterbi call; on CPU a no-Viterbi
-prefilter first ranks all candidates via the mother code's parity
+-> mismatch vs the received hard decisions. A no-Viterbi prefilter first
+ranks all candidates via the mother code's parity
 structure (see _proxy_scores) and the top PREFILTER_K get exact scoring.
 The TRUE region table yields a mismatch rate equal to the channel BER
 (~0 above the FIC-lock SNR); any misaligned region boundary shows up as
@@ -383,9 +382,9 @@ def calibrate(logical_soft: np.ndarray, bitrate_kbps: int,
     The parity-check proxy (pure NumPy, backend-independent) ranks every
     candidate in ~0.3 s; the shipped row plus the PREFILTER_K proxy-best
     get the exact scoring. Exact-scoring ALL candidates is not viable
-    even on TPU — the per-candidate host-side depuncture/re-encode alone
-    measures ~1 ms each (~5 s for the largest rows) plus a multi-GB
-    device stack, a live stall the hold would pass straight to the audio
+    on any backend — the per-candidate host-side depuncture/re-encode
+    alone costs about a millisecond each (seconds for the largest rows)
+    plus a multi-GB device stack, a live stall the hold would pass straight to the audio
     start (r5 review finding). See the proxy's docstring for its coverage
     limits on weak (PI < 8) regions."""
     all_cands = candidate_profiles(bitrate_kbps, protection_level)

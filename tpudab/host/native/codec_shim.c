@@ -1,6 +1,6 @@
 /* Minimal libavcodec shim for tpudab host-side audio codecs.
  *
- * TPU-native framework note: codec math is scalar/branchy and stays on the
+ * Framework note: codec math is scalar/branchy and stays on the
  * host CPU (SURVEY.md sec 2.6 'faad2 / mpg123' disposition); this shim is the
  * native-code equivalent of the reference's faad2/mpg123 usage, built against
  * the system FFmpeg (libavcodec 59) and driven from Python via ctypes.

@@ -35,11 +35,10 @@ def _decode_descramble_t(punctured, profile, n_bits: int):
     """Transposed-layout decode chain: depuncture_t emits the Viterbi
     kernel's native (T2p, 8, B) soft layout straight from the one-hot
     matmul (flush-bias tail, so termination stays exact), deleting the
-    (B, T, 4) -> (T2, 8, B) HBM relayout from the hot path (~2 ms at
-    production batch on v5e); then decode to packed bytes (in-kernel pack
-    on TPU) + energy-dispersal descramble as a byte-level XOR — avoids
-    materializing the (B, n_bits) bit plane (a 1.4 ms/step padded-layout
-    pack on v5e)."""
+    (B, T, 4) -> (T2, 8, B) relayout from the hot path; then decode to
+    packed bytes (the GPU kernel's traceback packs) + energy-dispersal
+    descramble as a byte-level XOR — the (B, n_bits) bit plane is never
+    materialized."""
     by = viterbi_decode_bytes_best_t(depuncture_t(punctured, profile),
                                      n_bits)
     prbs_by = jnp.asarray(pack_bits(prbs_bits(n_bits)))
@@ -61,15 +60,14 @@ class ReceiveStep:
     window_offset: int = 12
     n_ensembles: int = 1
     # Soft-bit dtype for the FEC chain (deinterleave ring, depuncture).
-    # bfloat16 halves the HBM traffic of the chain's memory-bound stages
-    # (deinterleave 6.4 -> 2.2 ms at production batch on v5e); Viterbi
-    # decisions are scale-invariant and the ~2^-9 rounding sits ~30 dB
-    # below channel noise at operating SNR. Set "float32" for bit-exact
-    # parity with the per-stage oracles.
+    # bfloat16 halves the memory traffic of the chain's memory-bound
+    # stages; Viterbi decisions are scale-invariant and the ~2^-9 rounding
+    # sits ~30 dB below channel noise at operating SNR. Set "float32" for
+    # bit-exact parity with the per-stage oracles.
     # (A merge-FIC-into-widest-MSC-call variant using the separator-flush
-    # trick was measured SLOWER on v5e — ~4 ms of padded-layout copies vs
-    # ~2.9 ms standalone — and was removed in r4; the trick itself stays
-    # validated in tests/test_viterbi.py::test_merged_codewords_separator_flush.)
+    # trick was measured slower on the first accelerator target and
+    # removed; the trick itself stays validated in
+    # tests/test_viterbi.py::test_merged_codewords_separator_flush.)
     soft_dtype: str = "bfloat16"
 
     def __post_init__(self):
@@ -99,7 +97,7 @@ class ReceiveStep:
         would force a device relayout (see demod_frames_split docstring).
 
         Split re/im keeps the device program complex-free (the FFT is one
-        dense MXU matmul, tpudab.ofdm.demod). Returns (carry, outputs):
+        dense matmul, tpudab.ofdm.demod). Returns (carry, outputs):
           fic_bytes: ([E,] F * n_groups, group_bytes) uint8 (pre-CRC-check)
           subch: {id: ([E,] C, frame_bytes) uint8} decoded logical frames
                  (logical index alignment handled by the host wrapper)
@@ -120,7 +118,7 @@ class ReceiveStep:
                                          self.mode, self.window_offset,
                                          out_dtype=self.soft_dtype)
 
-        # ---- FIC: standalone transposed depuncture -> Pallas decode ----
+        # ---- FIC: standalone transposed depuncture -> Viterbi decode ----
         fic_profile = FIC_PROFILE_MODE3 if self.mode == 3 else FIC_PROFILE
         g = dab.nb_fib_groups
         fic_groups = soft[:, : dab.nb_fic_bits].reshape(
@@ -165,7 +163,7 @@ class ReceiveStep:
             body = logical[:, : slice_bits - padding_bits] \
                 if padding_bits else logical
             n_bits = profile.data_bits
-            # transposed depuncture -> Pallas decode (no (B,T,4)->(T2,8,B)
+            # transposed depuncture -> Viterbi decode (no (B,T,4)->(T2,8,B)
             # relayout; flush-bias tail keeps termination exact)
             by = _decode_descramble_t(body, profile, n_bits)
             by = by.reshape((len(cfgs), e, c, -1) if e > 1

@@ -2,8 +2,8 @@
 
 Shared by OfflinePipeline and StreamingRadio (VERDICT r3 item #1: the live
 streaming path must run the same fused device program — demod + FIC
-depuncture/Viterbi + MSC deinterleave/depuncture/Viterbi, Pallas kernels on
-TPU — that bench.py measures). The driver tracks the pieces that live across
+depuncture/Viterbi + MSC deinterleave/depuncture/Viterbi, the Pallas Viterbi
+kernel on the GPU — that bench.py measures). The driver tracks the pieces that live across
 batches: the jitted step (rebuilt when the FIC database discovers new
 subchannels), the deinterleaver ring carry, and the logical-frame index of
 each subchannel's next output row.

@@ -5,9 +5,9 @@ transmitted CIF n carries, at bit index i of a subchannel's slice,
     C_n(i) = u_{n - d(i mod 16)}(i)
 where u_m is the m-th punctured logical-frame codeword and d is the
 bit-reversed delay table below. The receiver reconstructs logical frame m
-once CIF m+15 has arrived (16-CIF ring, 15-CIF latency) — in the TPU build
-the ring is a device array carried in the streaming state and the gather is
-a static take (SURVEY.md sec 7 'time deinterleaver (carry ring as device
+once CIF m+15 has arrived (16-CIF ring, 15-CIF latency) — on device the
+ring is an array carried in the streaming state and the gather is a static
+mask-select (SURVEY.md sec 7 'time deinterleaver (carry ring as device
 array)').
 """
 
@@ -60,94 +60,6 @@ def deinterleave_np(cif_slices: np.ndarray) -> np.ndarray:
     return np.where(valid, cif_slices[np.minimum(rows, n_frames - 1), cols], 0)
 
 
-def _deinterleave_xla(buf, c: int):
-    """XLA mask-select form: 16 row-shifted slices summed. XLA fuses the
-    chain into one pass over the output, but each output element still
-    evaluates all 16 branches — a 16x HBM read amplification of the buffer
-    (the fused expression re-reads the shifted operand per branch)."""
-    import jax
-    import jax.numpy as jnp
-    s = buf.shape[-1]
-    d = interleave_delays(s)
-    out = None
-    for k in range(TIME_INTERLEAVE_DEPTH):
-        part = jnp.where(jnp.asarray(d == k),
-                         jax.lax.slice_in_dim(buf, k, k + c, axis=-2), 0.0)
-        out = part if out is None else out + part
-    return out
-
-
-def _use_deint_kernel() -> bool:
-    """Pallas kernel on TPU backends only (uses pltpu memory spaces, does
-    not lower on GPU); XLA mask-select elsewhere.
-    Override with TPUDAB_DEINT=pallas|xla."""
-    import os
-    import jax
-    force = os.environ.get("TPUDAB_DEINT", "").lower()
-    if force == "pallas":
-        return True
-    if force == "xla":
-        return False
-    try:
-        return jax.devices()[0].platform.lower() == "tpu"
-    except Exception:
-        return False
-
-
-def deinterleave_pallas(buf, c: int, interpret: bool = False):
-    """Pallas deinterleave: the buffer is staged in VMEM ONCE per ensemble
-    and the 16 masked shifted slices accumulate at VPU/VMEM speed — HBM
-    traffic drops to the information minimum (buffer read once + output
-    written once) instead of the XLA form's 16x read amplification.
-
-    buf: (E, c+15, S) or (c+15, S); returns (E, c, S) / (c, S). Exact
-    (pure selection — no arithmetic on the data).
-
-    Measured-and-rejected (r4): a 4-stage barrel shifter over the binary
-    decomposition of d (4 selects instead of 16 masked adds) lowers to
-    massive Mosaic relayouts — the select's two operands are row slices at
-    MISMATCHED sublane offsets — and ran 350x slower (904 ms vs 2.55 ms
-    in-step at production batch on v5e). The masked-add form keeps every
-    operand at a fixed sublane phase."""
-    import jax
-    import jax.numpy as jnp
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    squeeze = buf.ndim == 2
-    if squeeze:
-        buf = buf[None]
-    e, rows, s = buf.shape
-    assert rows == c + TIME_INTERLEAVE_DEPTH - 1
-    d = interleave_delays(s)
-    drow = jnp.asarray(d[None, :].astype(np.int32))  # (1, S)
-
-    def kernel(d_ref, in_ref, out_ref):
-        dr = d_ref[...]  # (1, S)
-        acc = None
-        for k in range(TIME_INTERLEAVE_DEPTH):
-            sl = in_ref[0, k:k + c, :]
-            term = jnp.where(dr == k, sl, jnp.zeros_like(sl))
-            acc = term if acc is None else acc + term
-        out_ref[0] = acc
-
-    out = pl.pallas_call(
-        kernel,
-        grid=(e,),
-        in_specs=[
-            pl.BlockSpec((1, s), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, rows, s), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, c, s), lambda i: (i, 0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((e, c, s), buf.dtype),
-        interpret=interpret,
-    )(drow, buf)
-    return out[0] if squeeze else out
-
-
 def deinterleave_batch(buf, c: int):
     """Device-side batched deinterleave.
 
@@ -158,19 +70,17 @@ def deinterleave_batch(buf, c: int):
     d depends only on col % 16, so instead of a general 2D gather (which
     XLA lowers to a slow per-element take at production batch) the result
     is a mask-select sum of 16 contiguous row-shifted slices
-    buf[..., k : k+c, :]. On TPU this runs as a Pallas kernel with the
-    accumulation VMEM-local (deinterleave_pallas); elsewhere as the XLA
-    fused chain (_deinterleave_xla), bit-identical.
+    buf[..., k : k+c, :], which XLA fuses into one pass over the output
+    (each output element selects among 16 shifted reads of the buffer).
     """
+    import jax
+    import jax.numpy as jnp
     s = buf.shape[-1]
     assert s % TIME_INTERLEAVE_DEPTH == 0
-    # lane-aligned S only (odd-CU subchannel slices fall back to XLA);
-    # the kernel stages the whole (c+15, S) input block plus the (c, S)
-    # output in VMEM per grid step — guard against blocks that exceed the
-    # ~16 MB VMEM scope (very wide subchannel x many frames/step) instead
-    # of failing at compile time (ADVICE r3 item 5)
-    block_bytes = (2 * c + TIME_INTERLEAVE_DEPTH - 1) * s * buf.dtype.itemsize
-    if (_use_deint_kernel() and buf.ndim in (2, 3) and s % 128 == 0
-            and block_bytes <= 12 * 1024 * 1024):
-        return deinterleave_pallas(buf, c)
-    return _deinterleave_xla(buf, c)
+    d = interleave_delays(s)
+    out = None
+    for k in range(TIME_INTERLEAVE_DEPTH):
+        part = jnp.where(jnp.asarray(d == k),
+                         jax.lax.slice_in_dim(buf, k, k + c, axis=-2), 0.0)
+        out = part if out is None else out + part
+    return out

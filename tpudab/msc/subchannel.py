@@ -1,7 +1,7 @@
 """MSC subchannel decoding: CIF slices -> logical-frame bytes.
 
 Reference parity: vendor/DAB-Radio MSC CIF extractor + time deinterleaver +
-subchannel decoder (SURVEY.md sec 2.3). TPU-native design (SURVEY.md sec 7):
+subchannel decoder (SURVEY.md sec 2.3). Batched design (SURVEY.md sec 7):
 the reference's per-subchannel worker threads become batch dims — all CIFs in
 a block are sliced/deinterleaved/depunctured at once and the Viterbi runs
 batched across (logical frames x subchannels).
@@ -25,7 +25,7 @@ from tpudab.database.entities import Subchannel
 from tpudab.fec.depuncture import depuncture
 from tpudab.fec.prbs import descramble_bits
 from tpudab.msc.interleave import deinterleave_batch, TIME_INTERLEAVE_DEPTH
-# dispatching decode: Pallas ACS kernel on TPU, XLA scan on CPU (bit-
+# dispatching decode: Pallas ACS kernel on the GPU, XLA scan on CPU (bit-
 # identical; VERDICT r3 item #1 — the host path must not pin the scan)
 from tpudab.ops.viterbi_pallas import viterbi_decode_best as viterbi_decode
 from tpudab.utils.bits import pack_bits
@@ -67,12 +67,10 @@ def subch_cif_slices(soft, cfg: SubchannelConfig, nb_fic_bits: int,
                      nb_cifs: int):
     """(rows, nb_frame_bits) flat soft -> (rows, nb_cifs, slice_bits) CIF
     slices for one subchannel, taken DIRECTLY from the flat array: one
-    contiguous, lane-resident column window per CIF position, stacked.
-    Materializing the full (.., c, CIF_BITS) MSC band first —
-    soft[:, fic:].reshape(.., c, CIF_BITS) — splits the lane dim into
-    rows, a measured 2.5 ms bf16 relayout of the whole band at production
-    batch on v5e; these windows touch only the occupied CUs. Shared by
-    ReceiveStep and ShardedReceiveStep (r5)."""
+    contiguous column window per CIF position, stacked. Materializing the
+    full (.., c, CIF_BITS) MSC band first — soft[:, fic:].reshape(.., c,
+    CIF_BITS) — copies the whole band; these windows touch only the
+    occupied CUs. Shared by ReceiveStep and ShardedReceiveStep (r5)."""
     lo = cfg.start_cu * CU_BITS
     parts = [jax.lax.slice_in_dim(
         soft, nb_fic_bits + k * CIF_BITS + lo,

@@ -1,6 +1,6 @@
 """L3 OFDM front-end: IQ -> soft bits, as batched jitted JAX.
 
-TPU-native replacement for vendor/DAB-Radio `ofdm_core` (SURVEY.md sec 2.2).
+Batched replacement for vendor/DAB-Radio `ofdm_core` (SURVEY.md sec 2.2).
 The reference's sample-serial, thread-fanned state machine becomes:
 - block-parallel acquisition (null-dip scan + PRS matched filter + coarse/fine
   CFO estimation) over a whole buffered block (tpudab.ofdm.sync), and

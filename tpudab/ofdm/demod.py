@@ -4,7 +4,7 @@ Replaces the reference's per-symbol worker threads (OFDM_Demod symbol fan-out,
 SURVEY.md sec 2.2 'pipeline threading') with a single batched program: all 76
 symbols of all buffered frames are FFT'd at once; the PLL rotate, differential
 demap, frequency deinterleave and soft quantization are elementwise/gather ops
-XLA fuses around the FFT. Runs under jit on TPU; float32 complex throughout.
+XLA fuses around the FFT. Runs under jit; float32 complex throughout.
 """
 
 from __future__ import annotations
@@ -94,10 +94,9 @@ def _dense_demod_matrix(mode: int):
     FFT, active-bin extraction, frequency deinterleave via mapper_ref) into
     ONE dense matmul operand: column j is the DFT row of fft bin
     bins[pos[j]], so the matmul output is already deinterleaved — no gathers
-    on the hot path, and the whole FFT is a single MXU-shaped contraction
-    instead of the two-stage Cooley-Tukey (which cost 3 relayout transposes
-    + 8 matmuls per batch; measured 20 ms vs ~5 ms for this form at 256
-    frames on v5e).
+    on the hot path, and the whole FFT is a single dense contraction
+    instead of a two-stage Cooley-Tukey (3 relayout transposes + 8 matmuls
+    per batch).
     """
     p = get_ofdm_params(mode)
     bins = active_bin_indices(mode)
@@ -105,21 +104,6 @@ def _dense_demod_matrix(mode: int):
     cols = bins[pos.astype(np.int64)]
     ang = -2.0 * np.pi * np.outer(np.arange(p.nb_fft), cols) / p.nb_fft
     return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
-
-
-def _use_carve_kernel() -> bool:
-    """Pallas carve kernel on real TPU backends; XLA slices elsewhere.
-    Override with TPUDAB_CARVE=pallas|xla."""
-    import os
-    force = os.environ.get("TPUDAB_CARVE", "").lower()
-    if force == "pallas":
-        return True
-    if force == "xla":
-        return False
-    try:
-        return jax.devices()[0].platform.lower() not in ("cpu", "")
-    except Exception:
-        return False
 
 
 @functools.partial(jax.jit, static_argnames=("mode", "window_offset",
@@ -130,27 +114,22 @@ def demod_frames_split(frames_re, frames_im, freq_offset_hz, mode: int = 1,
                        out_dtype: str = "float32"):
     """Complex-free demod: split re/im float32 in, soft bits out.
 
-    Numerically equivalent to demod_frames but TPU-first: no complex dtype
-    anywhere, the FFT + bin-select + frequency deinterleave are one dense
-    MXU matmul per split part (see _dense_demod_matrix), and the PLL/NCO
-    rotation is applied only to the FFT windows (the null symbol and the
-    unused cyclic-prefix samples never enter the compute).
+    Numerically equivalent to demod_frames but complex-free: the FFT +
+    bin-select + frequency deinterleave are one dense matmul per split part
+    (see _dense_demod_matrix), and the PLL/NCO rotation is applied only to
+    the FFT windows (the null symbol and the unused cyclic-prefix samples
+    never enter the compute).
 
-    Input frames may be (F, nb_frame_length) or the lane-tiled
-    (F, nb_frame_length//128, 128) form. HOT-PATH CALLERS MUST PASS THE
-    TILED 3D FORM (a free numpy reshape): the 2D device layout differs
-    physically, and reshaping it on device is a measured 2.9 ms relayout
-    at 256 frames on v5e. On TPU the window carve + PLL rotate run as the
-    Pallas kernel tpudab.ops.carve (the misaligned symbol-stride slice is
-    a ~75 GB/s XLA relayout otherwise); on CPU an XLA slice path with
-    identical numerics is used.
+    Input frames may be (F, nb_frame_length) or the tiled
+    (F, nb_frame_length//128, 128) form (a free numpy reshape).
 
     dft_dtype: matmul operand precision. "bfloat16" (default) rounds the
     windows and DFT matrix to bf16 with float32 accumulation — per-element
     rounding is ~2^-9 but the 2048-point coherent accumulation keeps the
     resulting soft-bit SNR at ~-55 dB (validated in
-    tests/test_ofdm.py::test_split_real_demod_bf16), 2-4x MXU rate.
-    Use "float32" for bit-accurate parity with demod_frames.
+    tests/test_ofdm.py::test_split_real_demod_bf16).
+    "float32" runs the products at HIGHEST precision (no TF32) for parity
+    with demod_frames.
     """
     p = get_ofdm_params(mode)
     n_sym, n_fft, n_cp = p.nb_symbols, p.nb_fft, p.nb_cyclic_prefix
@@ -167,31 +146,25 @@ def demod_frames_split(frames_re, frames_im, freq_offset_hz, mode: int = 1,
         re3, im3 = frames_re, frames_im
     freq = jnp.broadcast_to(jnp.asarray(freq_offset_hz, jnp.float32), (f,))
 
-    if dft_dtype == "bfloat16" and _use_carve_kernel():
-        from tpudab.ops.carve import carve_rotate
-        xr, xi = carve_rotate(re3, im3, freq, mode, window_offset)
-        ar = xr.reshape(f, n_sym, rows_per_win, 128)
-        ai = xi.reshape(f, n_sym, rows_per_win, 128)
-    else:
-        flat_r = re3.reshape(f, p.nb_frame_length)
-        flat_i = im3.reshape(f, p.nb_frame_length)
+    flat_r = re3.reshape(f, p.nb_frame_length)
+    flat_i = im3.reshape(f, p.nb_frame_length)
 
-        def carve(x):
-            sym = x[:, p.nb_null_period:].reshape(f, n_sym, n_fft + n_cp)
-            return sym[:, :, start:start + n_fft]
+    def carve(x):
+        sym = x[:, p.nb_null_period:].reshape(f, n_sym, n_fft + n_cp)
+        return sym[:, :, start:start + n_fft]
 
-        wr, wi = carve(flat_r), carve(flat_i)
-        # PLL rotate the windows only. Absolute sample time of window sample
-        # (sym, k) is null + sym*(fft+cp) + start + k; the common per-symbol
-        # phase the timing offset induces cancels in the differential demap.
-        t_sym = (p.nb_null_period + start
-                 + (n_fft + n_cp) * np.arange(n_sym)) / SAMPLING_RATE
-        t_k = np.arange(n_fft) / SAMPLING_RATE
-        t_abs = (t_sym[:, None] + t_k[None, :]).astype(np.float32)
-        ph = -2.0 * jnp.pi * freq[:, None, None] * jnp.asarray(t_abs)[None]
-        c, s = jnp.cos(ph), jnp.sin(ph)
-        ar = (wr * c - wi * s).astype(dt).reshape(f, n_sym, rows_per_win, 128)
-        ai = (wr * s + wi * c).astype(dt).reshape(f, n_sym, rows_per_win, 128)
+    wr, wi = carve(flat_r), carve(flat_i)
+    # PLL rotate the windows only. Absolute sample time of window sample
+    # (sym, k) is null + sym*(fft+cp) + start + k; the common per-symbol
+    # phase the timing offset induces cancels in the differential demap.
+    t_sym = (p.nb_null_period + start
+             + (n_fft + n_cp) * np.arange(n_sym)) / SAMPLING_RATE
+    t_k = np.arange(n_fft) / SAMPLING_RATE
+    t_abs = (t_sym[:, None] + t_k[None, :]).astype(np.float32)
+    ph = -2.0 * jnp.pi * freq[:, None, None] * jnp.asarray(t_abs)[None]
+    c, s = jnp.cos(ph), jnp.sin(ph)
+    ar = (wr * c - wi * s).astype(dt).reshape(f, n_sym, rows_per_win, 128)
+    ai = (wr * s + wi * c).astype(dt).reshape(f, n_sym, rows_per_win, 128)
 
     wre, wim = _dense_demod_matrix(mode)
     k = wre.shape[1]
@@ -200,9 +173,9 @@ def demod_frames_split(frames_re, frames_im, freq_offset_hz, mode: int = 1,
         # (m1=(ar+ai)@Wre, m2=ai@(Wre+Wim), m3=ar@(Wim-Wre); cr=m1-m2,
         # ci=m3+m1) — and bf16 matmul outputs/demap intermediates, which
         # halves the HBM traffic of the bandwidth-bound differential-demap
-        # stage. Combined: 9.9 -> 7.6 ms at 256 frames on v5e; soft-bit
-        # error vs the f32 4-matmul form is ~-45 dB (bf16 rounding of the
-        # demap products), ~25 dB below channel noise at operating SNR.
+        # stage. Soft-bit error vs the f32 4-matmul form is ~-45 dB (bf16
+        # rounding of the demap products), ~25 dB below channel noise at
+        # operating SNR.
         acc = jnp.bfloat16
         mm = lambda a, b: jax.lax.dot_general(
             a, b, dimension_numbers=(((2, 3), (0, 1)), ((), ())),
@@ -217,12 +190,14 @@ def demod_frames_split(frames_re, frames_im, freq_offset_hz, mode: int = 1,
         cr = m1 - m2
         ci = m3 + m1
     else:
-        # float32 path: one (K, 2N) operand per split part, f32 accumulate —
-        # bit-accurate parity with demod_frames (the complex oracle)
+        # float32 path: one (K, 2N) operand per split part, f32 products
+        # and accumulation (HIGHEST: no TF32) — parity with demod_frames
+        # (the complex oracle)
         mboth = jnp.asarray(np.concatenate([wre, wim], axis=1)
                             .reshape(rows_per_win, 128, 2 * k), dt)
         mm = lambda a, b: jax.lax.dot_general(
             a, b, dimension_numbers=(((2, 3), (0, 1)), ((), ())),
+            precision=jax.lax.Precision.HIGHEST,
             preferred_element_type=jnp.float32)
         p1 = mm(ar, mboth)          # [ar@Wre | ar@Wim]
         p2 = mm(ai, mboth)          # [ai@Wre | ai@Wim]
@@ -240,8 +215,7 @@ def demod_frames_split(frames_re, frames_im, freq_offset_hz, mode: int = 1,
         # so the flat-array mean equals the average of the halves' means),
         # while normalizing AFTER the (F, 75, 3072) -> (F, nb_frame_bits)
         # flatten costs a separate full read+write pass over an array the
-        # flatten just relaid out — a measured 1.1 ms/step at production
-        # batch on v5e (tools/exp_demod_output.py, r5).
+        # flatten just relaid out.
         norm = 0.5 * (jnp.mean(jnp.abs(dr).astype(jnp.float32),
                                axis=(1, 2), keepdims=True)
                       + jnp.mean(jnp.abs(di).astype(jnp.float32),

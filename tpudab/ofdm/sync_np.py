@@ -1,9 +1,9 @@
 """Pure-NumPy acquisition (host CPU), mirroring tpudab.ofdm.sync.
 
 DEMOTED TO TEST ORACLE (round 2): production acquisition is
-tpudab.ofdm.sync_device — split-real, batched over ensembles, jitted, and
-runnable on TPU backends without complex64 (it acquires all N ensembles of
-a chip in one ~13 ms device call at B=16 on v5e). This NumPy mirror is the
+tpudab.ofdm.sync_device — split-real, batched over ensembles, jitted (it
+acquires all N ensembles of a card in one device call). This NumPy mirror
+is the
 JAX-free oracle in the three-way parity test
 tests/test_sync_device.py::test_acquire_device_matches_oracle (alongside
 the complex-jnp tpudab.ofdm.sync).

@@ -1,3 +1,3 @@
-"""Device kernels (JAX/XLA and Pallas-TPU) for the DAB compute path."""
+"""Device kernels (JAX/XLA and Pallas/Triton) for the DAB compute path."""
 
 from tpudab.ops.viterbi import viterbi_decode, viterbi_decode_np, pad_mother_soft

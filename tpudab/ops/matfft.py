@@ -1,10 +1,11 @@
-"""DFT as MXU matmuls on split real/imag float32 — no complex dtype on device.
+"""DFT as matmuls on split real/imag float32 — no complex dtype on device.
 
-Motivation (TPU-first design): the per-symbol 2048-point FFT is the demod's
-inner loop. Expressing it as a two-stage Cooley-Tukey with dense DFT factor
-matrices turns it into large batched real matmuls that map straight onto the
-MXU (SURVEY.md sec 7 roofline item), and it sidesteps complex64 support
-gaps in experimental TPU runtimes.
+The per-symbol 2048-point FFT is the acquisition's inner loop. Expressing it
+as a two-stage Cooley-Tukey with dense DFT factor matrices turns it into
+large batched real matmuls (SURVEY.md sec 7 roofline item) on split parts,
+so the acquisition program needs no complex dtype. The products run at
+HIGHEST precision: a TF32 product would cost the spectra their float32
+accuracy.
 
 Math (N = N1*N2, n = N2*n1 + n2, k = k1 + N1*k2):
   X[k1 + N1 k2] = sum_{n2} W_N^{n2 k1} [ sum_{n1} x[N2 n1 + n2] W_{N1}^{n1 k1} ]
@@ -25,7 +26,7 @@ import jax.numpy as jnp
 
 
 def _factor(n: int):
-    """Pick N1*N2 = n with both factors MXU-friendly (near sqrt, >= 8)."""
+    """Pick N1*N2 = n with both factors matmul-friendly (near sqrt, >= 8)."""
     best = None
     for n1 in range(2, n):
         if n % n1:
@@ -55,6 +56,7 @@ def _cmm(ar, ai, br, bi):
     """Complex matmul on split parts: (ar+i ai) @ (br+i bi)."""
     mm = lambda x, y: jax.lax.dot_general(
         x, y, dimension_numbers=(((x.ndim - 1,), (0,)), ((), ())),
+        precision=jax.lax.Precision.HIGHEST,
         preferred_element_type=jnp.float32)
     return mm(ar, br) - mm(ai, bi), mm(ar, bi) + mm(ai, br)
 

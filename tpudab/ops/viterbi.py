@@ -1,16 +1,17 @@
 """Batched soft-decision Viterbi decoder for the K=7 rate-1/4 DAB mother code.
 
-TPU-native replacement for the reference's vendored SIMD `viterbi_decoder`
+Batched replacement for the reference's vendored SIMD `viterbi_decoder`
 package (/root/reference/CMakeLists.txt:53-54; SURVEY.md sec 2.3 row 2 calls
 this the #1 native-kernel target). Design rationale (SURVEY.md sec 7):
 the 64-state trellis is sequential in time, so per-chip throughput comes from
 *batching across codewords* (FIB groups x subchannels x CIFs x ensembles),
 not from parallelizing one trellis:
 
-- Branch metrics for ALL steps are one big matmul (B*T, 4) @ (4, 128) onto
-  the MXU: metric[reg7] = sum_j soft_j * sign_j(reg7).
+- Branch metrics are a matmul against the +-1 output-sign table:
+  metric[reg7] = sum_j soft_j * sign_j(reg7), at HIGHEST precision (a TF32
+  product would round the soft bits; the +-1 signs are exact).
 - The ACS recursion is a lax.scan over time with only static gathers
-  (predecessor tables), max, and add — pure VPU work, fully batched over B.
+  (predecessor tables), max, and add — elementwise work batched over B.
 - Traceback is a reverse scan over stored 1-bit decisions.
 
 Codewords of different lengths batch together by right-padding with the
@@ -118,13 +119,14 @@ def viterbi_decode(mother_soft, n_data_bits: int, radix: int = 4,
 
     # Branch metrics are computed INSIDE the scan body (a skinny per-step
     # matmul): precomputing all of them would materialize a (T, B, 64*2^k)
-    # f32 tensor — tens of GB of HBM traffic at production batch sizes, which
-    # dominates the whole decode. Decisions are bit-packed to 2k uint32 words
+    # f32 tensor — tens of GB of device-memory traffic at production batch
+    # sizes, which dominates the whole decode. Decisions are bit-packed to 2k uint32 words
     # per codeword per super-step (same 2 bits/state/trellis-step as radix 1).
     def acs(pm, soft_step):
         bm = jax.lax.dot_general(
             soft_step, signs_t,
             dimension_numbers=(((1,), (0,)), ((), ())),
+            precision=jax.lax.Precision.HIGHEST,
             preferred_element_type=jnp.float32)         # (B, 64*2^k)
         cand = (jnp.take(pm, preds, axis=-1)            # (B, 2^k, 64)
                 + bm.reshape(b, 1 << k, N_STATES))

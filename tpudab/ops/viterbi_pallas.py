@@ -1,180 +1,140 @@
-"""Pallas-TPU Viterbi decoder (ACS + traceback) for the K=7 r=1/4 DAB code.
+"""Pallas Viterbi decoder (ACS + traceback) for the K=7 r=1/4 DAB code,
+compiled through Triton for NVIDIA GPUs.
 
-This is the framework's flagship hand kernel (SURVEY.md sec 2.3 row 2:
-"#1 native-kernel target: Pallas ACS kernel"), v3.
+Why a kernel: the XLA decoder (tpudab.ops.viterbi) is a lax.scan whose
+every step is a few small dependent operations — at radix 4 about 866
+launches of a thin matmul, a take, an argmax and a bit-pack per MSC
+codeword, plus a reverse-scan traceback of the same length. On a GPU that
+is latency-bound. Here the whole trellis runs inside one program:
 
-Why a hand kernel at all: the XLA lax.scan decoder (tpudab.ops.viterbi) is
-bound by per-iteration HBM round-trips — the branch-metric matmul output,
-the gathered candidates and the (B, 64) path-metric carry all materialize
-in HBM every trellis step (~30 MB/step at production batch), ~60 GB per
-full decode.  Here the path metrics never leave VMEM; HBM traffic is the
-information-theoretic minimum: soft bits in, 2-bit decisions out, packed
-traceback bytes out.
+- One THREAD owns one codeword, and its 64 path metrics live in that
+  thread's registers for the whole trellis: the state axis is 64 separate
+  (BT,) arrays, so the radix-2 butterfly's predecessor "gather" is a static
+  renaming of Python values — no shuffle, no shared memory, no
+  device-memory round trip per step. A program is one warp (BT = 32
+  codewords).
+- Input is the (T2, 8, B) layout tpudab.fec.depuncture.depuncture_t emits
+  (two trellis steps of 4 mother soft bits per row, batch minor), so the
+  32 threads of a warp read 32 consecutive codewords: coalesced.
+- Decisions leave the SM as two u32 words (64 bits) per trellis step,
+  (T, 2, B) u32, batch minor; the traceback kernel reads them back in
+  reverse and writes MSB-first packed bytes, 8 trellis steps per byte.
 
-Layout (learned from the failed v1/v2 attempts, see git history):
-- 64 trellis states on SUBLANES, batch on LANES — every ACS op is a full
-  (64, B_t) vreg op; no lane shuffles.
-- radix-2 trellis compaction (two input bits per ACS step): the 4-way
-  predecessor "gather" pred_j(s'') = (s''>>2) | (j<<4) is, for fixed j, a
-  contiguous 16-sublane slice of pm repeated 4x consecutively — exactly
-  `pltpu.repeat(pm[16j:16j+16], 4, axis=0)`.  No one-hot matmuls in the
-  sequential dependency chain (v2's mistake: per-step MXU latency chains).
-- soft bits are pre-arranged (T2, 8, B): one super-step slice soft[t] is an
-  8-sublane tile-aligned (8, B_t) read; branch metrics for all 256
-  super-transitions are one small MXU matmul (256,8)@(8,B_t) that does NOT
-  depend on the path metrics (v2 streamed precomputed (T, B, 128) branch
-  metrics from HBM — 512 B/codeword/step of pure bandwidth waste).
-- decisions stream out as (T2, 64, B) uint8 (2 bits used), 32 B/cw/step.
-- traceback is a second kernel walking chunks in reverse grid order with
-  the per-codeword state in SMEM-free (1, B_t) VMEM scratch; the survivor
-  selection dec[t, state_b, b] is a sublane-masked reduction.  Output is
-  one packed byte per super-step: state & 3 = (u_{2t} << 1) | u_{2t+1}.
-
-Exactness: identical decisions to tpudab.ops.viterbi.viterbi_decode
-(ties: pairwise maxima replicate first-index argmax) up to f32 rounding of
-the rebase schedule (rebased once per chunk here; rebase subtracts a
-per-codeword constant so decisions are unaffected).
+Exactness: per trellis step, decision = cand1 > cand0 (ties keep the
+first predecessor, s' >> 1) — the rule of viterbi_decode_np; path metrics
+are rebased on state 0 once per 8 trellis steps, which subtracts a
+per-codeword constant and leaves decisions unchanged. With soft input on
+a grid where every branch-metric sum is exact in float32, the decoded bits
+equal tpudab.ops.viterbi.viterbi_decode's.
 
 Soft-bit convention as in tpudab.ops.viterbi; codewords padded with the
-virtual-flush pattern batch freely.
+virtual-flush pattern (+1 on all four mother bits) batch freely.
 """
 
 from __future__ import annotations
 
 import functools
 
-import numpy as np
 import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
-from tpudab.fec.conv import N_STATES
-from tpudab.ops.viterbi import _radix_tables
+from tpudab.fec.conv import N_STATES, OUTPUT_SIGNS
+from tpudab.utils.bits import jnp_pack_bits, jnp_unpack_bits
+from tpudab.utils.runtime import platform
 
 _NEG = -1e9
-_K = 2  # radix-2: two trellis steps per ACS iteration
+_BT = 32      # codewords per program: one per thread of one warp
+_GROUP = 4    # (T2, 8, B) rows per loop iteration = 8 trellis steps = 1 byte
+_PARAMS = pl_triton.CompilerParams(num_warps=1, num_stages=1)
 
 
-def _fwd_kernel(signs_ref, soft_ref, dec_ref, pm_ref):
-    """Grid (b tiles, T2 chunks), chunk minor. Blocks:
-    signs (256, 8) const; soft (chunk, 8, B_t); dec out (chunk//4, 64, B_t)
-    u8 — 4 super-steps' 2-bit decisions PACKED per byte, step tb+q in bits
-    [6-2q, 8-2q) — so the store + u8 convert amortize over 4 ACS steps and
-    decision HBM shrinks 4x; pm scratch (64, B_t) f32 persists across the
-    chunk axis.
-    """
-    chunk = soft_ref.shape[0]
-    b_t = soft_ref.shape[2]
-
-    @pl.when(pl.program_id(1) == 0)
-    def _():
-        row = jax.lax.broadcasted_iota(jnp.int32, (N_STATES, b_t), 0)
-        pm_ref[:] = jnp.where(row == 0, 0.0, _NEG).astype(jnp.float32)
-
-    signs = signs_ref[:]  # (256, 8)
-
-    def acs(pm, soft_t):
-        bm = jax.lax.dot_general(
-            signs, soft_t,
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32)  # (256, B_t)
-        # consecutive repeat (np.repeat semantics): row u of c_j is
-        # pm[16j + (u >> 2)]  (pltpu.repeat is TILED, not consecutive)
-        c0 = jnp.repeat(pm[0:16], 4, axis=0) + bm[0:64]
-        c1 = jnp.repeat(pm[16:32], 4, axis=0) + bm[64:128]
-        c2 = jnp.repeat(pm[32:48], 4, axis=0) + bm[128:192]
-        c3 = jnp.repeat(pm[48:64], 4, axis=0) + bm[192:256]
-        d01 = (c1 > c0).astype(jnp.int32)
-        m01 = jnp.maximum(c0, c1)
-        d23 = (c3 > c2).astype(jnp.int32)
-        m23 = jnp.maximum(c2, c3)
-        dh = m23 > m01
-        new_pm = jnp.maximum(m01, m23)
-        return new_pm, jnp.where(dh, d23 | 2, d01)
-
-    def group(i, pm):
-        acc = None
-        for q in range(4):
-            pm, dec = acs(pm, soft_ref[4 * i + q])
-            dec = dec << (6 - 2 * q)
-            acc = dec if acc is None else acc | dec
-        dec_ref[i] = acc.astype(jnp.uint8)
-        return pm
-
-    pm = lax.fori_loop(0, chunk // 4, group, pm_ref[:])
-    # rebase once per chunk: subtracting a per-codeword constant never
-    # changes decisions; spread growth over one chunk is << f32 range
-    pm_ref[:] = pm - pm[0:1, :]
+def _branch_terms(reg7: int):
+    """Transition reg7's branch metric sum_c sign_c * soft_c written as
+    sign * base[idx], base = ((s0 +- s1) +- (s2 +- s3)): returns
+    (idx, sign) with idx in 0..7 (which of the eight bases)."""
+    sg = OUTPUT_SIGNS[reg7]
+    x = 0 if sg[0] == sg[1] else 1          # s0+s1 or s0-s1
+    y = 0 if sg[2] == sg[3] else 1          # s2+s3 or s2-s3
+    same = (sg[0] * sg[2]) > 0              # relative sign of the halves
+    return 4 * x + 2 * y + (0 if same else 1), float(sg[0])
 
 
-def _select_row(dec_b, state):
-    """Extract dec_b[state[0, b], b] per lane via a 6-level binary select
-    tree on the state bits (63 vreg-selects) — measured ~10% faster than
-    the 64-sublane masked reduction it replaces, and exact (r5)."""
-    v = dec_b
-    for k in range(5, -1, -1):
-        half = v.shape[0] // 2
-        bit = ((state >> k) & 1) > 0                       # (1, B_t) bool
-        v = jnp.where(bit, v[half:], v[:half])
-    return v                                                # (1, B_t)
+_BM = tuple(_branch_terms(r) for r in range(2 * N_STATES))
 
 
-def _tb_kernel_packed(dec_ref, out_ref, state_ref):
-    """Traceback over byte-packed decisions, emitting 8 decoded bits
-    (4 radix-2 super-steps) per output byte, MSB-first — the natural DAB
-    byte order — so the decoder's output IS the packed byte stream (no
-    separate device-side bit pack). Grid (b tiles, T2 chunks) with the
-    chunk axis REVERSED via the index maps.
-    Blocks: dec (chunk//4, 64, B_t) u8 (packed, see _fwd_kernel);
-    out (chunk//4, 1, B_t) u8; state scratch (1, B_t) i32."""
-    n_groups = dec_ref.shape[0]
-    b_t = dec_ref.shape[2]
+def _acs(pm, s4):
+    """One trellis step for all 64 states.
 
-    @pl.when(pl.program_id(1) == 0)
-    def _():
-        state_ref[:] = jnp.zeros((1, b_t), jnp.int32)
+    pm: tuple of 64 (BT,) f32 path metrics; s4: 4 (BT,) f32 mother soft
+    bits. Returns (new pm, low decision word, high decision word): bit s of
+    word s // 32 is 1 where state s took its second predecessor."""
+    a01, b01 = s4[0] + s4[1], s4[0] - s4[1]
+    a23, b23 = s4[2] + s4[3], s4[2] - s4[3]
+    base = (a01 + a23, a01 - a23, a01 + b23, a01 - b23,
+            b01 + a23, b01 - a23, b01 + b23, b01 - b23)
 
-    def group(i, state):
-        gb = n_groups - 1 - i
-        dec_b = dec_ref[gb].astype(jnp.int32)              # (64, B_t)
-        acc = jnp.zeros((1, b_t), jnp.int32)
-        for q in range(3, -1, -1):
-            j = (_select_row(dec_b, state) >> (6 - 2 * q)) & 3
-            acc = acc | ((state & 3) << (6 - 2 * q))
-            state = (state >> _K) | (j << (6 - _K))
-        out_ref[gb] = acc.astype(jnp.uint8)
+    def cand(p, reg7):
+        idx, sign = _BM[reg7]
+        return p + base[idx] if sign > 0 else p - base[idx]
+
+    new, words = [], []
+    for half in range(2):
+        w = None
+        for s in range(32 * half, 32 * half + 32):
+            c0 = cand(pm[s >> 1], s)
+            c1 = cand(pm[(s >> 1) | 32], s | 64)
+            d = c1 > c0
+            new.append(jnp.where(d, c1, c0))
+            bit = jnp.where(d, jnp.uint32(1 << (s & 31)), jnp.uint32(0))
+            w = bit if w is None else w | bit
+        words.append(w)
+    return tuple(new), words[0], words[1]
+
+
+def _fwd_kernel(soft_ref, dec_ref):
+    """soft (T2, 8, BT) -> decisions (2*T2, 2, BT) u32; T2 % _GROUP == 0."""
+    n_iter = soft_ref.shape[0] // _GROUP
+    zero = jnp.zeros((_BT,), jnp.float32)
+    pm0 = (zero,) + (zero + _NEG,) * (N_STATES - 1)
+
+    def body(i, pm):
+        for r in range(_GROUP):
+            row = _GROUP * i + r
+            soft = [soft_ref[row, c, :].astype(jnp.float32) for c in range(8)]
+            for h in range(2):
+                pm, lo, hi = _acs(pm, soft[4 * h:4 * h + 4])
+                dec_ref[2 * row + h, 0, :] = lo
+                dec_ref[2 * row + h, 1, :] = hi
+        return tuple(p - pm[0] for p in pm)
+
+    lax.fori_loop(0, n_iter, body, pm0)
+
+
+def _tb_kernel(dec_ref, out_ref):
+    """decisions (T, 2, BT) u32 -> packed bytes (T // 8, BT) u8, MSB first.
+    Starts from state 0 (terminated codewords) at the last step."""
+    n_bytes = out_ref.shape[0]
+
+    def body(i, state):
+        n = n_bytes - 1 - i
+        # the 16 words of this byte's steps do not depend on the state:
+        # issue all loads before the dependent chain
+        lo = [dec_ref[8 * n + q, 0, :] for q in range(8)]
+        hi = [dec_ref[8 * n + q, 1, :] for q in range(8)]
+        acc = jnp.zeros((_BT,), jnp.uint32)
+        for q in range(7, -1, -1):
+            # state after step 8n+q; its low bit is that step's input bit
+            acc = acc | ((state & 1) << (7 - q))
+            word = jnp.where(state < 32, lo[q], hi[q])
+            d = (word >> (state & 31)) & 1
+            state = (state >> 1) | (d << 5)
+        out_ref[n, :] = acc.astype(jnp.uint8)
         return state
 
-    state_ref[:] = lax.fori_loop(0, n_groups, group, state_ref[:])
-
-
-def _tb_kernel(dec_ref, out_ref, state_ref):
-    """Per-super-step output variant (used by the bit-level decoder). Grid
-    (b tiles, T2 chunks) with the chunk axis REVERSED via the index maps.
-    Blocks: dec (chunk//4, 64, B_t) u8 (packed); out (chunk, 1, B_t) u8
-    holding (u_{2t}<<1 | u_{2t+1}); state scratch (1, B_t) i32. The output
-    keeps a unit middle dim so the per-step store indexes the untiled
-    leading dim (dynamic sublane stores are not provably aligned).
-    """
-    n_groups = dec_ref.shape[0]
-    b_t = dec_ref.shape[2]
-
-    @pl.when(pl.program_id(1) == 0)
-    def _():
-        state_ref[:] = jnp.zeros((1, b_t), jnp.int32)
-
-    def group(i, state):
-        gb = n_groups - 1 - i
-        dec_b = dec_ref[gb].astype(jnp.int32)              # (64, B_t)
-        for q in range(3, -1, -1):
-            j = (_select_row(dec_b, state) >> (6 - 2 * q)) & 3
-            out_ref[4 * gb + q] = (state & 3).astype(jnp.uint8)
-            state = (state >> _K) | (j << (6 - _K))
-        return state
-
-    state_ref[:] = lax.fori_loop(0, n_groups, group, state_ref[:])
+    lax.fori_loop(0, n_bytes, body, jnp.zeros((_BT,), jnp.uint32))
 
 
 def _pad_to(x, m, axis, value):
@@ -186,248 +146,115 @@ def _pad_to(x, m, axis, value):
     return jnp.pad(x, pad, constant_values=value)
 
 
-def _fwd_decisions(mother_soft, chunk: int, b_tile: int | None,
-                   interpret: bool):
-    """Shared forward pass: returns byte-packed decisions
-    (decs (T2//4, 64, B) u8 — 4 super-steps per byte), plus geometry."""
-    assert chunk % 4 == 0
-    b0, t0, _ = mother_soft.shape
-    if b_tile is None:
-        # batch lives on the LANE axis: multiples of 128 only. 1024 lanes/
-        # tile measured fastest at production batch (14.1 vs 15.6 ms for
-        # 512 at B=6144, T=3462 on v5e) — fewer grid cells, same VPU work.
-        b_tile = min(1024, 128 * ((b0 + 127) // 128))
-    # pad T so the packed-decision grouping (4 super-steps/byte) is whole
-    soft = _pad_to(mother_soft, _K * 4 * chunk, axis=1, value=1.0)  # flush
-    soft = _pad_to(soft, b_tile, axis=0, value=0.0)
-    b, t, _ = soft.shape
-    t2 = t // _K
-    n_chunks = t2 // chunk
-    n_b = b // b_tile
-
-    signs_np, _ = _radix_tables(_K)           # (8, 256)
-    # (B, T, 4) -> (T2, 8, B): lane dim = batch, one tile-aligned sublane
-    # slice per super-step. bf16 soft (the production dtype) stays bf16
-    # through this relayout — the (B <-> T2*8) transpose is a full HBM
-    # pass, so keeping it 16-bit halves its traffic; the in-kernel branch-
-    # metric matmul takes bf16 operands natively (f32 accumulate), and the
-    # ACS path metrics remain f32. Other dtypes upcast to f32 here.
-    sdt = jnp.bfloat16 if soft.dtype == jnp.bfloat16 else jnp.float32
-    signs = jnp.asarray(signs_np.T, sdt)      # (256, 8), exact in bf16
-    soft_t = jnp.moveaxis(soft.reshape(b, t2, 4 * _K), 0, 2).astype(sdt)
-
+def _decode_t(soft_t, interpret: bool):
+    """(T2, 8, B) soft -> (B, ceil(T2/4)) packed bytes of every trellis
+    step (the flush tail included)."""
+    b0 = soft_t.shape[2]
+    if soft_t.dtype != jnp.bfloat16:
+        soft_t = soft_t.astype(jnp.float32)
+    # whole bytes: flush-pad the trellis (exact for terminated codewords);
+    # whole programs: erasure-pad the batch (sliced away below)
+    soft_t = _pad_to(soft_t, _GROUP, axis=0, value=1.0)
+    soft_t = _pad_to(soft_t, _BT, axis=2, value=0.0)
+    t2, _, b = soft_t.shape
+    grid = (b // _BT,)
     decs = pl.pallas_call(
         _fwd_kernel,
-        grid=(n_b, n_chunks),
-        in_specs=[
-            pl.BlockSpec((256, 4 * _K), lambda j, i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((chunk, 4 * _K, b_tile), lambda j, i: (i, 0, j),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((chunk // 4, N_STATES, b_tile),
-                               lambda j, i: (i, 0, j),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((t2 // 4, N_STATES, b), jnp.uint8),
-        scratch_shapes=[pltpu.VMEM((N_STATES, b_tile), jnp.float32)],
+        grid=grid,
+        in_specs=[pl.BlockSpec((t2, 8, _BT), lambda j: (0, 0, j))],
+        out_specs=pl.BlockSpec((2 * t2, 2, _BT), lambda j: (0, 0, j)),
+        out_shape=jax.ShapeDtypeStruct((2 * t2, 2, b), jnp.uint32),
+        compiler_params=_PARAMS,
+        backend="triton",
         interpret=interpret,
-    )(signs, soft_t)
-    return decs, b0, t2, b, b_tile, n_b, n_chunks
-
-
-@functools.partial(jax.jit, static_argnames=("n_data_bits", "chunk", "b_tile",
-                                             "interpret"))
-def viterbi_decode_pallas_bytes(mother_soft, n_data_bits: int,
-                                chunk: int = 32, b_tile: int | None = None,
-                                interpret: bool = False):
-    """Viterbi decode returning MSB-first PACKED BYTES (B, n_data_bits//8).
-
-    The traceback kernel accumulates 8 decoded bits per output byte in
-    registers, so the packed byte stream comes straight out of VMEM — the
-    production path for the receive step, where a separate device-side
-    bit-pack of the (B, n_bits) u8 decisions measured 1.4 ms/step on v5e
-    (padded-layout ops on a (..., 8)-minor reshape).
-    """
-    assert n_data_bits % 8 == 0 and chunk % 4 == 0
-    decs, b0, t2, b, b_tile, n_b, n_chunks = _fwd_decisions(
-        mother_soft, chunk, b_tile, interpret)
-
-    packed = pl.pallas_call(
-        _tb_kernel_packed,
-        grid=(n_b, n_chunks),
-        in_specs=[
-            pl.BlockSpec((chunk // 4, N_STATES, b_tile),
-                         lambda j, i: (pl.num_programs(1) - 1 - i, 0, j),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((chunk // 4, 1, b_tile),
-                               lambda j, i: (pl.num_programs(1) - 1 - i, 0, j),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((t2 // 4, 1, b), jnp.uint8),
-        scratch_shapes=[pltpu.VMEM((1, b_tile), jnp.int32)],
-        interpret=interpret,
-    )(decs)
-
-    by = jnp.moveaxis(packed[:, 0, :], 0, 1)              # (B, T2//4)
-    return by[:b0, :n_data_bits // 8]
-
-
-@functools.partial(jax.jit, static_argnames=("n_data_bits", "chunk", "b_tile",
-                                             "interpret"))
-def viterbi_decode_pallas(mother_soft, n_data_bits: int, chunk: int = 32,
-                          b_tile: int | None = None, interpret: bool = False):
-    """Drop-in equivalent of tpudab.ops.viterbi.viterbi_decode.
-
-    mother_soft: (B, T, 4) float32; returns (B, n_data_bits) uint8.
-
-    Measured (TPU v5e, B=6144, T=3462, queued-dispatch timing): 14.4 ms end
-    to end (fwd 10.4 + traceback 2.5 + layout glue) = 1475 Mbit/s payload,
-    vs 27.4 ms for the XLA lax.scan decoder — and the fwd kernel sits at its
-    VPU issue-rate bound (~8 vector ops per 2 trellis steps).
-    """
-    decs, b0, t2, b, b_tile, n_b, n_chunks = _fwd_decisions(
-        mother_soft, chunk, b_tile, interpret)
-
+        name="viterbi_acs",
+    )(soft_t)
     packed = pl.pallas_call(
         _tb_kernel,
-        grid=(n_b, n_chunks),
-        in_specs=[
-            pl.BlockSpec((chunk // 4, N_STATES, b_tile),
-                         lambda j, i: (pl.num_programs(1) - 1 - i, 0, j),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((chunk, 1, b_tile),
-                               lambda j, i: (pl.num_programs(1) - 1 - i, 0, j),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((t2, 1, b), jnp.uint8),
-        scratch_shapes=[pltpu.VMEM((1, b_tile), jnp.int32)],
+        grid=grid,
+        in_specs=[pl.BlockSpec((2 * t2, 2, _BT), lambda j: (0, 0, j))],
+        out_specs=pl.BlockSpec((t2 // _GROUP, _BT), lambda j: (0, j)),
+        out_shape=jax.ShapeDtypeStruct((t2 // _GROUP, b), jnp.uint8),
+        compiler_params=_PARAMS,
+        backend="triton",
         interpret=interpret,
+        name="viterbi_traceback",
     )(decs)
-
-    # unpack: byte at super-step t holds (u_{2t} << 1) | u_{2t+1}
-    packed = jnp.moveaxis(packed[:, 0, :], 0, 1)          # (B, T2)
-    bits = jnp.stack([(packed >> 1) & 1, packed & 1], axis=-1)
-    bits = bits.reshape(b, t2 * _K)
-    return bits[:b0, :n_data_bits]
+    return packed.T[:b0]
 
 
-@functools.partial(jax.jit, static_argnames=("n_data_bits", "chunk", "b_tile",
-                                             "interpret"))
-def viterbi_decode_pallas_bytes_t(soft_t, n_data_bits: int, chunk: int = 16,
-                                  b_tile: int | None = None,
+def _to_t_layout(mother_soft):
+    """(B, T, 4) -> (T2, 8, B): flush-pad T to even, two steps per row."""
+    soft = _pad_to(mother_soft, 2, axis=1, value=1.0)
+    b, t, _ = soft.shape
+    return jnp.moveaxis(soft.reshape(b, t // 2, 8), 0, 2)
+
+
+@functools.partial(jax.jit, static_argnames=("n_data_bits", "interpret"))
+def viterbi_decode_pallas_bytes_t(soft_t, n_data_bits: int,
                                   interpret: bool = False):
-    """Viterbi decode from PRE-TRANSPOSED soft input (T2p, 8, B) — the
-    layout tpudab.fec.depuncture.depuncture_t emits — to MSB-first packed
-    bytes (B, n_data_bits // 8).
+    """Viterbi decode from the transposed soft layout (T2, 8, B) — what
+    tpudab.fec.depuncture.depuncture_t emits, flush tail included — to
+    MSB-first packed bytes (B, n_data_bits // 8)."""
+    assert n_data_bits % 8 == 0 and soft_t.shape[1] == 8
+    return _decode_t(soft_t, interpret)[:, :n_data_bits // 8]
 
-    Skips the (B, T, 4) -> (T2, 8, B) relayout entirely; depuncture_t
-    fills the tail pad with the +1.0 virtual-flush pattern so the decode
-    is bit-identical to the flush-padded (B, T, 4) path. chunk=16 always
-    divides T2p = 16 * n_blocks. Production path for the receive step's
-    MSC + FIC decode.
-    """
-    assert n_data_bits % 8 == 0 and chunk % 4 == 0
-    t2, eight, b0 = soft_t.shape
-    assert eight == 4 * _K and t2 % chunk == 0
-    if b_tile is None:
-        b_tile = min(1024, 128 * ((b0 + 127) // 128))
-    soft_t = _pad_to(soft_t, b_tile, axis=2, value=0.0)
-    b = soft_t.shape[2]
-    n_b = b // b_tile
-    n_chunks = t2 // chunk
 
-    signs_np, _ = _radix_tables(_K)
-    sdt = jnp.bfloat16 if soft_t.dtype == jnp.bfloat16 else jnp.float32
-    signs = jnp.asarray(signs_np.T, sdt)
-    soft_t = soft_t.astype(sdt)
+@functools.partial(jax.jit, static_argnames=("n_data_bits", "interpret"))
+def viterbi_decode_pallas_bytes(mother_soft, n_data_bits: int,
+                                interpret: bool = False):
+    """(B, T, 4) mother soft -> MSB-first packed bytes (B, n_data_bits//8)."""
+    assert n_data_bits % 8 == 0
+    return _decode_t(_to_t_layout(mother_soft),
+                     interpret)[:, :n_data_bits // 8]
 
-    decs = pl.pallas_call(
-        _fwd_kernel,
-        grid=(n_b, n_chunks),
-        in_specs=[
-            pl.BlockSpec((256, 4 * _K), lambda j, i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((chunk, 4 * _K, b_tile), lambda j, i: (i, 0, j),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((chunk // 4, N_STATES, b_tile),
-                               lambda j, i: (i, 0, j),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((t2 // 4, N_STATES, b), jnp.uint8),
-        scratch_shapes=[pltpu.VMEM((N_STATES, b_tile), jnp.float32)],
-        interpret=interpret,
-    )(signs, soft_t)
 
-    packed = pl.pallas_call(
-        _tb_kernel_packed,
-        grid=(n_b, n_chunks),
-        in_specs=[
-            pl.BlockSpec((chunk // 4, N_STATES, b_tile),
-                         lambda j, i: (pl.num_programs(1) - 1 - i, 0, j),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((chunk // 4, 1, b_tile),
-                               lambda j, i: (pl.num_programs(1) - 1 - i, 0, j),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((t2 // 4, 1, b), jnp.uint8),
-        scratch_shapes=[pltpu.VMEM((1, b_tile), jnp.int32)],
-        interpret=interpret,
-    )(decs)
+@functools.partial(jax.jit, static_argnames=("n_data_bits", "interpret"))
+def viterbi_decode_pallas(mother_soft, n_data_bits: int,
+                          interpret: bool = False):
+    """Drop-in equivalent of tpudab.ops.viterbi.viterbi_decode:
+    (B, T, 4) -> (B, n_data_bits) uint8 bits."""
+    by = _decode_t(_to_t_layout(mother_soft), interpret)
+    return jnp_unpack_bits(by)[:, :n_data_bits]
 
-    by = jnp.moveaxis(packed[:, 0, :], 0, 1)              # (B, T2p//4)
-    return by[:b0, :n_data_bits // 8]
+
+def use_kernel(plat: str) -> bool:
+    """The one backend rule: the Pallas kernel on "gpu", the XLA scan
+    decoder on "cpu" (tests, virtual meshes); any other platform is an
+    error, not a guess."""
+    if plat == "gpu":
+        return True
+    if plat == "cpu":
+        return False
+    raise ValueError(f"no Viterbi decoder for JAX platform {plat!r}")
 
 
 def viterbi_decode_bytes_best_t(soft_t, n_data_bits: int):
-    """Backend-dispatching transposed-input decode: Pallas on TPU; on CPU
-    the input is relaid to (B, T, 4) and decoded by the XLA scan (bit-
-    identical for terminated codewords)."""
-    if _use_pallas():
+    """Backend-dispatching transposed-input decode to packed bytes. On the
+    CPU the input is relaid to (B, T, 4) and decoded by the XLA scan
+    (bit-identical for terminated codewords)."""
+    if use_kernel(platform()):
         return viterbi_decode_pallas_bytes_t(soft_t, n_data_bits)
     from tpudab.ops.viterbi import viterbi_decode
-    from tpudab.utils.bits import jnp_pack_bits
     t2, _, b = soft_t.shape
-    soft = jnp.moveaxis(soft_t, 2, 0).reshape(b, t2 * _K, 4)
+    soft = jnp.moveaxis(soft_t, 2, 0).reshape(b, t2 * 2, 4)
     soft = soft[:, : n_data_bits + 6]
     return jnp_pack_bits(viterbi_decode(soft.astype(jnp.float32),
                                         n_data_bits))
 
 
-def _platform() -> str:
-    try:
-        return jax.devices()[0].platform.lower()
-    except Exception:
-        return "cpu"
-
-
-@functools.lru_cache(maxsize=1)
-def _use_pallas() -> bool:
-    """Pallas kernel on TPU backends only (the kernels use pltpu memory
-    spaces and will not lower on GPU); XLA scan decoder elsewhere (CPU
-    tests / virtual meshes). Override with TPUDAB_VITERBI=pallas|xla."""
-    import os
-    force = os.environ.get("TPUDAB_VITERBI", "").lower()
-    if force == "pallas":
-        return True
-    if force == "xla":
-        return False
-    return _platform() == "tpu"
-
-
 def viterbi_decode_best(mother_soft, n_data_bits: int):
-    """Backend-dispatching Viterbi decode: Pallas ACS kernel on TPU, XLA
-    scan decoder on CPU (where Mosaic kernels would need interpret mode)."""
-    from tpudab.ops.viterbi import viterbi_decode
-    if _use_pallas():
+    """Backend-dispatching Viterbi decode to bits (B, n_data_bits)."""
+    if use_kernel(platform()):
         return viterbi_decode_pallas(mother_soft, n_data_bits)
+    from tpudab.ops.viterbi import viterbi_decode
     return viterbi_decode(mother_soft, n_data_bits)
 
 
 def viterbi_decode_bytes_best(mother_soft, n_data_bits: int):
     """Backend-dispatching Viterbi decode to MSB-first packed bytes
-    (n_data_bits % 8 == 0): in-kernel packing on TPU, scan + pack on CPU."""
-    if _use_pallas():
+    (n_data_bits % 8 == 0)."""
+    if use_kernel(platform()):
         return viterbi_decode_pallas_bytes(mother_soft, n_data_bits)
     from tpudab.ops.viterbi import viterbi_decode
-    from tpudab.utils.bits import jnp_pack_bits
     return jnp_pack_bits(viterbi_decode(mother_soft, n_data_bits))

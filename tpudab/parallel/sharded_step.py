@@ -6,11 +6,12 @@ Multi-chip design (SURVEY.md sec 2.7, sec 5.7; BASELINE configs 4-5):
   the same ensemble. The only sequential coupling is the 16-CIF time
   deinterleaver; its 15-CIF history is exchanged with the left time-neighbor
   via ONE lax.ppermute carrying ALL subchannels' tails concatenated (a few
-  hundred KB over ICI), after which every shard decodes its frames
-  independently — continuous decode across block seams with zero host round
-  trips. The shard's trailing (edge) frames are demodulated FIRST so the
-  collective is issued before the bulk interior demod and can ride ICI
-  concurrently with it (VERDICT r2 item #1).
+  hundred KB), after which every shard decodes its frames independently —
+  continuous decode across block seams with zero host round trips. The
+  shard's trailing (edge) frames are demodulated FIRST so the collective is
+  issued before the bulk interior demod (VERDICT r2 item #1). The mesh
+  follows the algorithm only: on GPUs every card reaches every other over
+  NVLink at the same rate.
 
 A step-level carry holds the stream tail so consecutive step calls are
 seamless too (streaming resume, SURVEY.md sec 5.4).
@@ -49,9 +50,6 @@ class ShardedReceiveStep:
     mode: int
     subchannels: Tuple[SubchannelConfig, ...]
     window_offset: int = 12
-    # False replaces the halo ppermute with zeros (outputs wrong at seams);
-    # used ONLY by bench_scaling.py to isolate the collective's cost.
-    halo_exchange: bool = True
 
     def __post_init__(self):
         self.params = get_ofdm_params(self.mode)
@@ -116,7 +114,7 @@ class ShardedReceiveStep:
 
         # Demod the trailing edge frames FIRST: they alone determine the
         # 15-CIF halo, so the single batched ppermute below is issued before
-        # the interior demod and overlaps with it on ICI.
+        # the interior demod.
         edge_f = min(t_l, -(-_H // dab.nb_cifs))
         soft_edge = demod(frames_re[:, t_l - edge_f:],
                           frames_im[:, t_l - edge_f:], edge_f)
@@ -127,7 +125,7 @@ class ShardedReceiveStep:
             [lax.slice_in_dim(cifs_tail, cfg.start_cu * CU_BITS,
                               cfg.start_cu * CU_BITS + cfg.slice_bits, axis=2)
              for cfg in self.subchannels], axis=2)
-        if self.n_time > 1 and self.halo_exchange:
+        if self.n_time > 1:
             halo_cat = lax.ppermute(
                 tail_cat, "time",
                 perm=[(i, i + 1) for i in range(self.n_time - 1)])
@@ -135,13 +133,13 @@ class ShardedReceiveStep:
             # sender's ppermute has no local consumers, so without this
             # barrier XLA's CPU thunk scheduler sinks the send to the end
             # of the sender's program and the receiver stalls through the
-            # sender's ENTIRE step before it can decode — measured +40% on
-            # the 2-process gloo row (250 ms vs 182 ms single-device; the
-            # transfer itself is 1.4 ms). The barrier makes every
-            # downstream op wait for the exchange, which completes in ~ms
-            # right after the edge demod on both sides. On TPU the
-            # transfer is a few hundred KB over ICI (~us), so the lost
-            # transfer/compute overlap is negligible there.
+            # sender's ENTIRE step before it can decode (measured +40% on
+            # a 2-process gloo run). The barrier makes every downstream op
+            # wait for the exchange, right after the edge demod on both
+            # sides. On four H100s over NCCL (2 x 2 mesh) the exchange
+            # (one SendRecv kernel, 0.12-0.28 ms per step) is largely
+            # serialised by it: 0.06-0.27 ms of that runs with no other
+            # kernel beside it on the card.
             soft_edge, frames_re, frames_im, halo_cat = \
                 lax.optimization_barrier(
                     (soft_edge, frames_re, frames_im, halo_cat))
